@@ -1,6 +1,6 @@
-// Native I/O runtime for sfm_tpu.
+// Native I/O runtime for sfm_jax.
 //
-// TPU-native equivalent of the reference's host-side I/O layer: the
+// Equivalent of the reference's host-side I/O layer: the
 // reference uses OpenCV imread for PPM ingest (reference
 // src/main.cpp:251-257) and an OpenGL viewer for output (src/main.cpp:
 // 318-352).  Here: a dependency-free multi-threaded PNM decoder that
@@ -194,7 +194,7 @@ int sfm_load_gray_batch(const char** paths, int n, float* out, long w, long h,
 // ---------------------------------------------------------------------------
 // Decode-ahead prefetcher: worker threads decode frames into a bounded
 // ring of float buffers while the consumer (the JAX pipeline) uploads
-// and processes earlier frames.  TPU-native replacement for the
+// and processes earlier frames.  replacement for the
 // reference's synchronous per-frame cv::imread ingest (reference
 // src/main.cpp:251-257): frame decode overlaps accelerator compute in
 // sequence/incremental mode.  In-order delivery; decode failures are

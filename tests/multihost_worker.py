@@ -1,7 +1,7 @@
 """Subprocess worker for the 2-process CPU cluster test
 (test_multihost.py).  Forms a real jax.distributed cluster (gloo
 collectives over localhost), builds the global mesh through
-sfm_tpu.parallel.mesh.make_global_mesh, and runs dist_match + dist_BA
+sfm_jax.parallel.mesh.make_global_mesh, and runs dist_match + dist_BA
 end-to-end across process boundaries — the multi-host execution path
 that single-process tests cannot reach (SURVEY.md §2.6/§5 distributed
 communication backend; no reference counterpart, the reference is
@@ -31,7 +31,7 @@ def main():
     import numpy as np
     import jax.numpy as jnp
 
-    from sfm_tpu.parallel import mesh as meshmod
+    from sfm_jax.parallel import mesh as meshmod
 
     n_proc = meshmod.init_distributed(f"localhost:{port}", 2, proc_id)
     assert n_proc == 2, n_proc
@@ -40,9 +40,9 @@ def main():
     mesh = meshmod.make_global_mesh()
     assert mesh.size == 4, mesh
 
-    from sfm_tpu.parallel import dist_ba, dist_match
-    from sfm_tpu.sift import match as match_mod
-    from sfm_tpu.models import bundle_adjust as ba
+    from sfm_jax.parallel import dist_ba, dist_match
+    from sfm_jax.sift import match as match_mod
+    from sfm_jax.models import bundle_adjust as ba
 
     # Every process seeds the same host rng, so each holds the full
     # problem; put_sharded distributes it over the global mesh.

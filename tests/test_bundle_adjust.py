@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import pytest
 
 from helpers import rot
-from sfm_tpu.models import bundle_adjust as ba
+from sfm_jax.models import bundle_adjust as ba
 
 
 def _make_problem(rng, M=5, P=200, noise=5e-4, perturb=0.03, outliers=0):
@@ -91,7 +91,7 @@ def test_ba_pose_recovery(rng):
 
 def test_ba_ate_within_bound(rng):
     """North-star metric: absolute trajectory error after BA."""
-    from sfm_tpu.utils import metrics
+    from sfm_jax.utils import metrics
 
     prob, (R_gt, t_gt, X_gt), init, _ = _make_problem(rng, perturb=0.03)
     pre_rmse, _ = metrics.ate_rmse(init[0], init[1], R_gt, t_gt)

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import pytest
 
 from helpers import rot
-from sfm_tpu.models import calibrate as cal
+from sfm_jax.models import calibrate as cal
 
 
 F_GT = 2800.0

@@ -10,8 +10,8 @@ import pathlib
 import numpy as np
 import pytest
 
-from sfm_tpu import cli
-from sfm_tpu.io.image_io import load_gray
+from sfm_jax import cli
+from sfm_jax.io.image_io import load_gray
 
 DINO = pathlib.Path("/root/reference/data/dino")
 
@@ -50,19 +50,18 @@ def test_cli_two_view(tmp_path):
     assert f"element vertex {m['num_points']}".encode() in head
 
 
-@pytest.mark.skipif(not DINO.exists(), reason="dino dataset not available")
 def test_cli_sift_pair(tmp_path):
     """`sift` subcommand ≙ the reference's standalone demo
     (mainSift.cpp:25-93): extract a pair, match, fit a homography,
-    export features."""
+    export features — on crops of the synthetic pair."""
+    from sfm_jax.io import synthetic as syn
+
+    scene = syn.make_scene(0)
+    K = syn.intrinsics()
     paths = []
-    for i in range(2):
-        img = np.asarray(load_gray(DINO / f"viff.{i:03d}.ppm"))[40:360, 100:612]
-        u8 = np.clip(img, 0, 255).astype(np.uint8)
-        p = tmp_path / f"crop{i}.pgm"
-        h, w = u8.shape
-        p.write_bytes(f"P5\n{w} {h}\n255\n".encode() + u8.tobytes())
-        paths.append(str(p))
+    for i, (R, t) in enumerate(syn.two_view_poses()):
+        img = syn.render(scene, K, R, t)[120:440, 100:612]
+        paths.append(syn.write_ppm(tmp_path / f"crop{i}.ppm", img))
 
     out = tmp_path / "feats.npz"
     met = tmp_path / "sift.json"
@@ -97,7 +96,7 @@ def test_view_ply_html_roundtrip(tmp_path, rng):
     _sys.path.insert(0, _os.path.join(_os.path.dirname(__file__), "..",
                                       "tools"))
     import view_ply
-    from sfm_tpu.io.image_io import save_ply
+    from sfm_jax.io.image_io import save_ply
 
     pts = rng.normal(size=(257, 3)).astype(np.float32)
     p = tmp_path / "cloud.ply"

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import pytest
 
 from helpers import rot, synthetic_two_view
-from sfm_tpu.config import SiftConfig
-from sfm_tpu.sift import frontend
-from sfm_tpu.geometry import pose
-from sfm_tpu.ops import linalg
+from sfm_jax.config import SiftConfig
+from sfm_jax.sift import frontend
+from sfm_jax.geometry import pose
+from sfm_jax.ops import linalg
 
 
 def test_upscale_extraction(rng):
@@ -57,8 +57,8 @@ def test_inverse_iteration_eigsolver(rng):
 def test_dist_ba_larger_problem(rng):
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from sfm_tpu.parallel import mesh as meshmod, dist_ba
-    from sfm_tpu.models import bundle_adjust as ba
+    from sfm_jax.parallel import mesh as meshmod, dist_ba
+    from sfm_jax.models import bundle_adjust as ba
 
     mesh = meshmod.make_mesh(8)
     M, P = 12, 1200
@@ -100,7 +100,7 @@ def test_dist_ba_larger_problem(rng):
     )
     costs = np.array(costs)
     assert costs[-1] < 0.05 * costs[0]
-    from sfm_tpu.utils import metrics
+    from sfm_jax.utils import metrics
 
     rmse, _ = metrics.ate_rmse(np.array(R_d), np.array(t_d), R_gt, t_gt)
     assert rmse < 5e-3, rmse

@@ -1,6 +1,6 @@
 """Tests for the debug/parity dump harness (utils.debug).
 
-The dump is the TPU equivalent of the reference's `enable_debug`
+The dump is the equivalent of the reference's `enable_debug`
 printers (reference SfM/kernels.h:19, SfM/sfm.cu:86-341): it must
 expose every printed intermediate and agree with the production
 pipeline bit-for-bit where they share computations.
@@ -13,10 +13,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sfm_tpu.config import SiftConfig, PipelineConfig, RansacConfig
-from sfm_tpu.io.image_io import load_gray
-from sfm_tpu.models import two_view
-from sfm_tpu.utils import debug
+from sfm_jax.config import SiftConfig, PipelineConfig, RansacConfig
+from sfm_jax.io.image_io import load_gray
+from sfm_jax.models import two_view
+from sfm_jax.utils import debug
 
 
 def _small_cfg():
@@ -68,8 +68,11 @@ def test_two_view_dump_matches_pipeline():
 
 def test_print_dump_runs():
     # Formatted printer must handle a real dump without error.
+    from sfm_jax.io import synthetic as syn
+
+    R, t = syn.two_view_poses()[0]
     img = jnp.asarray(
-        load_gray("/root/reference/data/dino/viff.000.ppm")[100:260, 200:392]
+        syn.render(syn.make_scene(0), syn.intrinsics(), R, t)[200:360, 260:452]
     )
     K = jnp.asarray(
         np.array([[2360.0, 0, 96.0], [0, 2360.0, 80.0], [0, 0, 1]], np.float32)

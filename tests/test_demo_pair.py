@@ -16,10 +16,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sfm_tpu.config import MatchConfig, SiftConfig
-from sfm_tpu.geometry import homography
-from sfm_tpu.io.image_io import load_gray
-from sfm_tpu.sift import frontend, match as match_mod
+from sfm_jax.config import MatchConfig, SiftConfig
+from sfm_jax.geometry import homography
+from sfm_jax.io.image_io import load_gray
+from sfm_jax.sift import frontend, match as match_mod
 
 DATA = pathlib.Path("/root/reference/CudaSift/data")
 
@@ -69,17 +69,14 @@ def test_demo_pair_up_scale():
     CudaSift's README benchmark table (CudaSift/README.md:126-134)
     reports upScale=True thresh=2.0 -> 4502 matches on this pair (vs
     2720 at upScale=False): up-scaling should FIND MORE features and
-    keep the match rate.  This pins the behavioral contract the device
-    bench (tools/bench_upscale.py) measures — and guards the bf16
-    phantom-detection regression (see NOTES_R3: DoG matmuls need
-    Precision.HIGH; at this thresh the CPU/device feature counts agree
-    to ~0.1%).
+    keep the match rate.  This pins the behavioral contract — and
+    guards the reduced-precision phantom-detection regression (the DoG
+    blurs run at ops.image.BLUR_PRECISION).
 
     Runs on a 2x-decimated pair (640x480, so the up-scaled base is the
     original 1280x960) to keep the CPU suite fast while preserving the
     full stereo overlap (crops lose match partners across the
-    disparity); the full published-config numbers live in the device
-    bench (tools/bench_upscale.py, NOTES_R3).
+    disparity).
     """
     img1 = load_gray(DATA / "left.pgm")[::2, ::2]
     img2 = load_gray(DATA / "righ.pgm")[::2, ::2]

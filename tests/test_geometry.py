@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sfm_tpu.geometry import epipolar, ransac, pose, triangulate as tri, refine
+from sfm_jax.geometry import epipolar, ransac, pose, triangulate as tri, refine
 from helpers import synthetic_two_view, e_error, rot_angle_error, t_dir_error
 
 
@@ -30,7 +30,7 @@ def test_eight_point_noise_free():
     T1 = epipolar.normalizing_transform(x1)
     T2 = epipolar.normalizing_transform(x2)
     A = epipolar.eight_point_matrix(x1[:8] @ T1.T, x2[:8] @ T2.T)
-    from sfm_tpu.ops import linalg
+    from sfm_jax.ops import linalg
 
     e = linalg.qr_nullvec(A[None])
     E = epipolar.denormalize_E(e.reshape(3, 3), T1, T2)
@@ -84,7 +84,7 @@ def test_pose_candidates_structure(scene):
     dets = np.linalg.det(np.array(Rs))
     np.testing.assert_allclose(dets, 1.0, atol=1e-4)
     # Each candidate must reproduce E up to scale/sign.
-    from sfm_tpu.geometry.refine import essential_from_pose
+    from sfm_jax.geometry.refine import essential_from_pose
 
     for i in range(4):
         Ei = np.array(essential_from_pose(Rs[i], ts[i]))
@@ -186,7 +186,7 @@ def test_minimal_set_sampling_no_duplicates():
     # even when n_valid barely exceeds k.
     import jax
     import jax.numpy as jnp
-    from sfm_tpu.geometry.ransac import sample_minimal_sets
+    from sfm_jax.geometry.ransac import sample_minimal_sets
 
     for n, n_valid, k in [(64, 9, 8), (128, 128, 8), (200, 50, 6)]:
         mask = np.zeros(n, bool)

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from sfm_tpu.geometry import lie
+from sfm_jax.geometry import lie
 from helpers import rot
 
 

@@ -1,4 +1,4 @@
-"""Tests for sfm_tpu.ops.linalg — the batched small-matrix solvers.
+"""Tests for sfm_jax.ops.linalg — the batched small-matrix solvers.
 
 Parity model: the reference validated its solver primitives with
 hand-run printf tests (reference SfM/sfm.cu:386-510, e.g. testSVD at
@@ -9,7 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sfm_tpu.ops import linalg
+from sfm_jax.ops import linalg
 
 
 def test_jacobi_eigh_matches_numpy(rng):

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 
 from helpers import rot
-from sfm_tpu.utils import metrics, checkpoint
-from sfm_tpu.geometry import homography
+from sfm_jax.utils import metrics, checkpoint
+from sfm_jax.geometry import homography
 
 
 def test_umeyama_recovers_similarity(rng):
@@ -45,7 +45,7 @@ def test_ate_detects_error(rng):
 
 
 def test_checkpoint_roundtrip(tmp_path, rng):
-    from sfm_tpu.models.incremental import MapState
+    from sfm_jax.models.incremental import MapState
 
     state = MapState(
         X=jnp.asarray(rng.normal(size=(10, 3)).astype(np.float32)),
@@ -124,7 +124,7 @@ def test_improve_homography_reference_metric(rng):
 def test_native_io_rejects_malformed(tmp_path, rng):
     # Regression for the r1 advisor finding: mixed-size batches and
     # truncated payloads must fail cleanly, never write out of bounds.
-    from sfm_tpu.io import native
+    from sfm_jax.io import native
 
     if not native.available():
         import pytest
@@ -155,7 +155,7 @@ def test_native_io_rejects_malformed(tmp_path, rng):
 
 
 def test_native_io_roundtrip(tmp_path, rng):
-    from sfm_tpu.io import native
+    from sfm_jax.io import native
 
     if not native.available():
         import pytest
@@ -191,7 +191,7 @@ def _write_seq(tmp_path, rng, n=9, h=12, w=16):
 
 
 def test_prefetcher_in_order_and_matches_load_gray(tmp_path, rng):
-    from sfm_tpu.io import image_io, native
+    from sfm_jax.io import image_io, native
 
     paths = _write_seq(tmp_path, rng)
     golden = [image_io.load_gray(p) for p in paths]
@@ -210,7 +210,7 @@ def test_prefetcher_in_order_and_matches_load_gray(tmp_path, rng):
 
 
 def test_prefetcher_python_fallback(tmp_path, rng, monkeypatch):
-    from sfm_tpu.io import image_io, native
+    from sfm_jax.io import image_io, native
 
     paths = _write_seq(tmp_path, rng, n=5)
     golden = [image_io.load_gray(p) for p in paths]
@@ -222,7 +222,7 @@ def test_prefetcher_python_fallback(tmp_path, rng, monkeypatch):
 
 
 def test_prefetcher_decode_failure_raises(tmp_path, rng):
-    from sfm_tpu.io import native
+    from sfm_jax.io import native
 
     if not native.available():
         import pytest

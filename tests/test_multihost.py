@@ -1,7 +1,7 @@
 """Multi-host execution test: a REAL 2-process jax.distributed cluster
 (localhost coordinator, gloo CPU collectives, 2 virtual devices per
 process -> a 4-device global mesh) running dist_match and dist_BA
-through sfm_tpu.parallel.mesh.{init_distributed,make_global_mesh}.
+through sfm_jax.parallel.mesh.{init_distributed,make_global_mesh}.
 
 This is the distributed-communication-backend commitment of SURVEY.md
 §2.6/§5 exercised across actual process boundaries — the one path the

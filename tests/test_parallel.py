@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import pytest
 
 from helpers import rot
-from sfm_tpu.parallel import mesh as meshmod, dist_ba, dist_match
-from sfm_tpu.models import bundle_adjust as ba
-from sfm_tpu.sift import match as match_mod
+from sfm_jax.parallel import mesh as meshmod, dist_ba, dist_match
+from sfm_jax.models import bundle_adjust as ba
+from sfm_jax.sift import match as match_mod
 
 
 @pytest.fixture(scope="module")
@@ -36,22 +36,19 @@ def test_dist_match_equals_local(mesh, rng):
     np.testing.assert_allclose(np.array(s), np.array(s_ref), atol=1e-5)
 
 
-def test_dist_match_pallas_shard_equals_local(mesh, rng):
-    """The sharded matcher with the per-shard PALLAS kernel (interpret
-    mode on CPU) must agree with the local Pallas kernel — the TPU
-    configuration dist_match now defaults to (VERDICT r3 item 3)."""
-    from sfm_tpu.ops import pallas_match
-
+def test_dist_match_bf16_equals_local(mesh, rng):
+    """bf16 operands with f32 accumulation: the sharded matcher agrees
+    with the local one at the same score product."""
     d1 = rng.normal(size=(64, 128)).astype(np.float32)
     d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
     d2 = rng.normal(size=(1024, 128)).astype(np.float32)
     d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
-    b_ref, s_ref, i_ref = pallas_match.match_top2_pallas(
-        jnp.asarray(d1), jnp.asarray(d2), interpret=True
+    b_ref, s_ref, i_ref = match_mod.match_descriptors_top2(
+        jnp.asarray(d1), jnp.asarray(d2), bf16=True
     )
     b, s, i = dist_match.dist_match_top2(
         jnp.asarray(d1), jnp.asarray(d2), jnp.ones((1024,), bool), mesh,
-        use_pallas=True,
+        bf16=True,
     )
     np.testing.assert_allclose(np.array(b), np.array(b_ref), atol=2e-3)
     np.testing.assert_array_equal(np.array(i), np.array(i_ref))
@@ -152,3 +149,26 @@ def test_dist_ba_dense_solver_matches_cg(mesh):
     _, _, _, c_de = dist_ba.run_dist_ba(*args, iters=12, solver="dense")
     assert float(c_cg[-1]) < float(c_cg[0]) * 0.1
     assert abs(float(c_cg[-1]) - float(c_de[-1])) < 0.1 * float(c_de[-1]) + 1e-6
+
+
+def test_gather_to_one_takes_device0_copy_and_gathers_shards(mesh):
+    """Replicated leaves whose per-device copies differ (as GPU
+    scatter-adds can make them) come back as device 0's copy; sharded
+    leaves come back whole; both on one device."""
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    def body(x):
+        me = jax.lax.axis_index(meshmod.DATA_AXIS).astype(jnp.float32)
+        return jnp.full((3,), me), x * 2.0
+
+    drifted, sharded = jax.jit(shard_map(
+        body, mesh=mesh, in_specs=P(meshmod.DATA_AXIS),
+        out_specs=(P(), P(meshmod.DATA_AXIS)), check_vma=False,
+    ))(jnp.arange(16.0))
+    one, whole = meshmod.gather_to_one((drifted, sharded), mesh)
+    dev0 = mesh.devices.flat[0]
+    assert one.sharding.device_set == {dev0}
+    assert whole.sharding.device_set == {dev0}
+    np.testing.assert_array_equal(np.asarray(one), np.zeros(3))
+    np.testing.assert_array_equal(np.asarray(whole), np.arange(16.0) * 2.0)

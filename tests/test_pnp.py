@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 
 from helpers import rot, rot_angle_error
-from sfm_tpu.geometry import pnp
+from sfm_jax.geometry import pnp
 
 
 def _scene(rng, n=100, noise=0.0, outliers=0):

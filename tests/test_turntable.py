@@ -3,7 +3,7 @@
 Pins the r2 failure mode: a bas-relief-collapsed chain (rotations
 compressed ~2x, radius inflated chord-preservingly) must be recovered
 to the true uniform circular motion by fit_turntable + refine_turntable
-using only the image observations. See NOTES_R2.md for why the
+using only the image observations. See models/turntable.py for why the
 constraint is justified on turntable data (loop closure + gap-symmetric
 match survival).
 """
@@ -15,8 +15,8 @@ import pytest
 import jax.numpy as jnp
 
 from helpers import rot
-from sfm_tpu.geometry import triangulate as tri
-from sfm_tpu.models import turntable as tt
+from sfm_jax.geometry import triangulate as tri
+from sfm_jax.models import turntable as tt
 
 
 N_FRAMES = 12
@@ -69,7 +69,7 @@ def _collapse(R, t, factor=0.45):
     """Bas-relief-style corruption: compress every step's rotation by
     `factor` about the same axes while keeping chords (translation
     magnitudes) — the empirical failure shape on the dino data."""
-    from sfm_tpu.geometry import lie
+    from sfm_jax.geometry import lie
 
     M = R.shape[0]
     C = -np.einsum("mij,mi->mj", R, t)
@@ -148,7 +148,7 @@ def test_reconstruct_turntable_end_to_end():
     """Productized driver: synthetic ring features (track-unique
     descriptors) + a collapsed chain -> recovered uniform rotation."""
     import types
-    from sfm_tpu.config import PipelineConfig
+    from sfm_jax.config import PipelineConfig
 
     rng = np.random.default_rng(11)
     R, t, X = _true_scene(rng, n_pts=160)
@@ -192,7 +192,7 @@ def test_reconstruct_turntable_end_to_end():
 
 
 def test_ring_pairs_and_build_tracks_conflict_rule():
-    from sfm_tpu.models import tracks as tr
+    from sfm_jax.models import tracks as tr
 
     pairs = tr.ring_pairs(6, gaps=(1, 2), wrap=True)
     assert (5, 0) in pairs and (4, 0) in pairs and len(pairs) == 12
@@ -202,7 +202,7 @@ def test_ring_pairs_and_build_tracks_conflict_rule():
     # Synthetic features: 3 frames x 4 slots, descriptors arranged so
     # slot k matches slot k everywhere; one conflicting extra match.
     import types
-    from sfm_tpu.config import PipelineConfig
+    from sfm_jax.config import PipelineConfig
 
     rng = np.random.default_rng(0)
     base = rng.normal(size=(4, 128)).astype(np.float32)

@@ -12,9 +12,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sfm_tpu.config import SiftConfig, PipelineConfig, RansacConfig
-from sfm_tpu.io.image_io import load_gray
-from sfm_tpu.models import two_view
+from sfm_jax.config import SiftConfig, PipelineConfig, RansacConfig
+from sfm_jax.io.image_io import load_gray
+from sfm_jax.models import two_view
 
 DINO = pathlib.Path("/root/reference/data/dino")
 
@@ -49,7 +49,7 @@ def test_dino_pair_reconstruction(tmp_path):
     assert angle < 15.0, angle
 
     # PLY export runs.
-    from sfm_tpu.io.image_io import save_ply
+    from sfm_jax.io.image_io import save_ply
 
     out = tmp_path / "dino.ply"
     save_ply(out, np.array(res.points), valid=np.array(res.point_valid))

@@ -1,10 +1,11 @@
-"""Bundle-adjustment benchmark: Schur-CG LM at production scale.
+"""Bundle-adjustment benchmark: LM with a Schur solve at production scale.
 
-VERDICT r1 item 2's target: single-chip BA on M >= 50 cameras /
-50k points in seconds.  Synthesizes a ring of M cameras observing P
-points (O observations), perturbs, and times run_ba (solver="cg").
+A ring of M cameras observing P points (O observations) from
+sfm_jax.io.synthetic.ring_ba_problem, perturbed, solved by run_ba.
+Each timed call ends with block_until_ready.
 
-Usage: python tools/bench_ba.py [M] [P] [obs_per_cam] [--cpu]
+Usage: python tools/bench_ba.py [M] [P] [obs_per_cam] [--solver=cg|dense]
+                                [--cpu]
 """
 
 from __future__ import annotations
@@ -31,83 +32,35 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from sfm_jax import device
+    from sfm_jax.io import synthetic as syn
+    from sfm_jax.models import bundle_adjust as ba
 
-    from sfm_tpu.models import bundle_adjust as ba
-
+    device.enable_compile_cache()
     M = int(argv[0]) if len(argv) > 0 else 50
     P = int(argv[1]) if len(argv) > 1 else 50_000
     obs_per_cam = int(argv[2]) if len(argv) > 2 else 8_000
-    rng = np.random.default_rng(0)
-
-    # Ring of cameras looking inward at a point cloud.
-    ang = np.linspace(0, 2 * np.pi, M, endpoint=False)
-    X_gt = rng.uniform([-1, -1, -1], [1, 1, 1], size=(P, 3)).astype(np.float32)
-    R_gt = np.zeros((M, 3, 3), np.float32)
-    t_gt = np.zeros((M, 3), np.float32)
-    for i, a in enumerate(ang):
-        c, s = np.cos(a), np.sin(a)
-        Ry = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
-        R_gt[i] = Ry
-        C = np.array([4 * np.sin(a), 0.2, -4 * np.cos(a)], np.float32)
-        t_gt[i] = -Ry @ C
-    cam_idx = np.repeat(np.arange(M), obs_per_cam).astype(np.int32)
-    pt_idx = np.concatenate(
-        [rng.choice(P, obs_per_cam, replace=False) for _ in range(M)]
-    ).astype(np.int32)
-    Xc = np.einsum("oij,oj->oi", R_gt[cam_idx], X_gt[pt_idx]) + t_gt[cam_idx]
-    uv = (Xc[:, :2] / Xc[:, 2:3] + 1e-3 * rng.normal(size=(M * obs_per_cam, 2))
-          ).astype(np.float32)
-    mask = np.ones(M * obs_per_cam, bool)
-    fixed = np.zeros(M, bool)
-    fixed[0] = True
-
-    prob = ba.BAProblem(
-        jnp.asarray(cam_idx), jnp.asarray(pt_idx), jnp.asarray(uv),
-        jnp.asarray(mask), jnp.asarray(fixed),
-    )
-    # Perturbed init.
-    X0 = (X_gt + 0.02 * rng.normal(size=X_gt.shape)).astype(np.float32)
-    dr = 0.01 * rng.normal(size=(M, 3)).astype(np.float32)
-    from sfm_tpu.geometry import lie
-
-    R0 = np.einsum(
-        "mij,mjk->mik", R_gt,
-        np.asarray(jax.vmap(lie.so3_exp)(jnp.asarray(dr))),
-    ).astype(np.float32)
-    t0 = (t_gt + 0.01 * rng.normal(size=t_gt.shape)).astype(np.float32)
+    prob, R0, t0, X0, _, _ = syn.ring_ba_problem(M, P, obs_per_cam)
+    args = (jnp.asarray(R0), jnp.asarray(t0), jnp.asarray(X0), prob)
 
     iters, cg_iters = 15, 32
     t_c = time.time()
-    st, costs = ba.run_ba(
-        jnp.asarray(R0), jnp.asarray(t0), jnp.asarray(X0), prob,
-        iters=iters, solver=solver, cg_iters=cg_iters,
-    )
+    st, costs = ba.run_ba(*args, iters=iters, solver=solver, cg_iters=cg_iters)
     c_final = float(costs[-1])
     print(f"compile+first: {time.time()-t_c:.1f}s", flush=True)
 
-    from sfm_tpu.utils.timing import measure_rtt
-
-    rtt = measure_rtt()
-
-    best = float("inf")
+    ts = []
     for _ in range(3):
         tt = time.time()
-        st, costs = ba.run_ba(
-            jnp.asarray(R0), jnp.asarray(t0), jnp.asarray(X0), prob,
-            iters=iters, solver=solver, cg_iters=cg_iters,
-        )
-        _ = float(costs[-1])
-        best = min(best, max(0.0, (time.time() - tt) * 1000.0 - rtt))
-    O = M * obs_per_cam
+        jax.block_until_ready(
+            ba.run_ba(*args, iters=iters, solver=solver, cg_iters=cg_iters))
+        ts.append((time.time() - tt) * 1000.0)
+    best = float(np.median(ts))
     print(
-        f"BA M={M} P={P} O={O}: {best:.1f} ms for {iters} LM iters "
-        f"(cg {cg_iters}) = {best/iters:.1f} ms/iter; "
-        f"cost {float(costs[0]):.3e} -> {c_final:.3e}",
+        f"BA M={M} P={P} O={M * obs_per_cam} {solver}: median {best:.1f} ms "
+        f"for {iters} LM iters (cg {cg_iters}) = {best/iters:.1f} ms/iter; "
+        f"cost {float(costs[0]):.3e} -> {c_final:.3e} "
+        f"[{jax.devices()[0].platform} {jax.devices()[0].device_kind}]",
         flush=True,
     )
 

@@ -1,14 +1,13 @@
 """Reference-scale keypoint capacity demo: 32K-class frontend + matcher.
 
-The reference allocates maxPts = 32768 SIFT slots
-(/root/reference/src/main.cpp:271) and its CudaSift benchmark extracts
-~1280x960 images at thresh≈1-3 (CudaSift/mainSift.cpp).  This tool runs
-the TPU frontend at the same capacity class — 6 octaves x 8192
-slots/octave detection capacity, sample_cap=32768 sampled slots — on a
-1440x1152 mosaic of the dino frame (2x2 tile of the 720x576 canonical
-image, so the content has real SIFT structure), then matches the two
-32K descriptor sets, timing both stages amortized per the CLAUDE.md
-convention and reporting peak device memory.
+The reference allocates maxPts = 32768 SIFT slots (src/main.cpp:271)
+and its CudaSift benchmark extracts ~1280x960 images at thresh 1-3
+(CudaSift/mainSift.cpp).  This tool runs the frontend at the same
+capacity class — 6 octaves x 8192 slots/octave detection capacity,
+sample_cap=32768 sampled slots — on a 1440x1152 rendering of the
+synthetic box scene (sfm_jax.io.synthetic), then matches the two 32K
+descriptor sets, timing both stages (each call ended by
+block_until_ready) and reporting peak device memory.
 
 Usage: python tools/bench_capacity.py [--cpu]
 """
@@ -26,21 +25,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     if "--cpu" in sys.argv:
-        os.environ["XLA_FLAGS"] = os.environ.get("XLA_FLAGS", "")
         import jax
 
         jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
 
-    from sfm_tpu.config import SiftConfig, MatchConfig
-    from sfm_tpu.io.image_io import load_gray
-    from sfm_tpu.sift import frontend, match as match_mod
+    from sfm_jax.config import SiftConfig, MatchConfig
+    from sfm_jax.io import synthetic as syn
+    from sfm_jax.sift import frontend, match as match_mod
 
-    base = load_gray("/root/reference/data/dino/viff.000.ppm")
-    big = np.block([[base, base[:, ::-1]], [base[::-1, :], base[::-1, ::-1]]])
-    img1 = jnp.asarray(big)                      # 1152 x 1440
-    img2 = jnp.asarray(np.roll(big, (7, 11), (0, 1)))
+    scene = syn.make_scene(0)
+    K = syn.intrinsics(1440, 1152, 2.0 * syn.FOCAL)
+    (R1, t1), (R2, t2) = syn.two_view_poses()
+    img1 = jnp.asarray(syn.render(scene, K, R1, t1, 1440, 1152))
+    img2 = jnp.asarray(syn.render(scene, K, R2, t2, 1440, 1152))
     print(f"image: {img1.shape}", file=sys.stderr)
 
     cfg = SiftConfig(
@@ -51,29 +50,15 @@ def main():
     )
     mcfg = MatchConfig()
 
-    # RTT estimate for amortized timing (CLAUDE.md).
-    from sfm_tpu.utils.timing import measure_rtt
-
-    rtt = measure_rtt()
-    print(f"rtt ~ {rtt:.1f} ms", file=sys.stderr)
-
     def timeit(fn, label, n=8):
         t0 = time.time()
-        out = fn()
-        leaf = jax.tree_util.tree_leaves(out)[0]
-        float(np.asarray(jnp.sum(leaf.reshape(-1)[:1].astype(jnp.float32))))
+        out = jax.block_until_ready(fn())
         print(f"{label}: compile {time.time()-t0:.1f}s", file=sys.stderr)
         best = 1e9
         for _ in range(3):
             t0 = time.time()
-            outs = [fn() for _ in range(n)]
-            acc = sum(
-                jnp.sum(jax.tree_util.tree_leaves(o)[0].reshape(-1)[:1]
-                        .astype(jnp.float32))
-                for o in outs
-            )
-            float(np.asarray(acc))
-            best = min(best, max(0.0, (time.time() - t0) * 1000 - rtt) / n)
+            jax.block_until_ready([fn() for _ in range(n)])
+            best = min(best, (time.time() - t0) * 1000 / n)
         print(f"{label}: {best:.2f} ms", flush=True)
         return out
 

@@ -1,19 +1,19 @@
-"""Brute-force matcher micro-benchmark.
+"""Brute-force matcher micro-benchmark on the GPU.
 
-Counterpart of the reference's educational benchmark CudaSift/match.cu
-(16384x16384 128-D descriptor matching; its best GPU kernel: 10.53 ms
-/ 6224 GFLOPS, match.cu:53; best CPU AVX: 184.8 ms).  Runs the
-framework's running-top-2 matcher at the same problem size on the
-local accelerator, in f32 and bf16.
+Counterpart of the reference's benchmark CudaSift/match.cu (16384 x
+16384 128-D descriptor matching).  Times the running top-2 matcher
+(sift.match.match_descriptors_top2, an XLA scan over N2 chunks) at each
+N given, for both score products and a few chunk sizes.  Variants run
+in turns in one process; each call ends with block_until_ready.
 
-Usage: python tools/bench_match.py [N1] [N2]
+Usage: python tools/bench_match.py [N ...]      (default: 5120 16384)
 """
 
 import os
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import time
 
 import numpy as np
 
@@ -22,95 +22,39 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from sfm_tpu.sift.match import match_descriptors_top2
+    from sfm_jax import device
+    from sfm_jax.sift.match import match_descriptors_top2
 
-    n1 = int(sys.argv[1]) if len(sys.argv) > 1 else 16384
-    n2 = int(sys.argv[2]) if len(sys.argv) > 2 else 16384
+    device.require_gpu()
+    device.enable_compile_cache()
+    sizes = [int(a) for a in sys.argv[1:]] or [5120, 16384]
     rng = np.random.default_rng(0)
-    d1 = rng.normal(size=(n1, 128)).astype(np.float32)
-    d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
-    d2 = rng.normal(size=(n2, 128)).astype(np.float32)
-    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
-    flops = 2.0 * n1 * n2 * 128
-
-    from sfm_tpu.ops.pallas_match import match_top2_pallas
-
-    variants = [
-        ("xla-f32", lambda a, b: match_descriptors_top2(a, b, chunk=4096),
-         jnp.float32),
-        ("xla-bf16", lambda a, b: match_descriptors_top2(a, b, chunk=4096),
-         jnp.bfloat16),
-        ("pallas-bf16", lambda a, b: match_top2_pallas(a, b, bf16=True),
-         jnp.float32),
-        # Tile-shape sweep: bigger tiles amortize the per-tile reduction
-        # fixed costs (the kernel is VPU-top2-bound, not MXU-bound).
-        ("pallas-bm512", lambda a, b: match_top2_pallas(a, b, bm=512),
-         jnp.float32),
-        ("pallas-bn1024", lambda a, b: match_top2_pallas(a, b, bn=1024),
-         jnp.float32),
-        ("pallas-512x1024",
-         lambda a, b: match_top2_pallas(a, b, bm=512, bn=1024), jnp.float32),
-        ("pallas-bm128", lambda a, b: match_top2_pallas(a, b, bm=128),
-         jnp.float32),
-        # Per-lane running-top-2 accumulator (fewer VPU passes; see
-        # ops/pallas_match.py _make_kernel_lanes).
-        ("lanes-256x512",
-         lambda a, b: match_top2_pallas(a, b, variant="lanes"), jnp.float32),
-        ("lanes-256x1024",
-         lambda a, b: match_top2_pallas(a, b, bn=1024, variant="lanes"),
-         jnp.float32),
-        ("lanes-512x1024",
-         lambda a, b: match_top2_pallas(a, b, bm=512, bn=1024,
-                                        variant="lanes"), jnp.float32),
-        ("lanes-512x2048",
-         lambda a, b: match_top2_pallas(a, b, bm=512, bn=2048,
-                                        variant="lanes"), jnp.float32),
-        # (r4: bf16-accumulator and dual-chain ILP variants were
-        # A/B'd here and removed — Mosaic compile failure / 3.80 ms
-        # vs 3.64; NOTES_R4.)
-        # r5: pairwise-group pre-sort — same VPU pass count but HALF
-        # the serial accumulator-merge chain length per tile.
-        ("pair-512x1024",
-         lambda a, b: match_top2_pallas(a, b, bm=512, bn=1024,
-                                        variant="lanes_pair"), jnp.float32),
-        ("pair-512x2048",
-         lambda a, b: match_top2_pallas(a, b, bm=512, bn=2048,
-                                        variant="lanes_pair"), jnp.float32),
-        ("pair-512x4096",
-         lambda a, b: match_top2_pallas(a, b, bm=512, bn=4096,
-                                        variant="lanes_pair"), jnp.float32),
-    ]
-    # Warm up / compile each variant, record correctness.
-    runnable = []
-    sample = slice(0, 256)
-    ref_idx = (d1[sample] @ d2.T).argmax(1)
-    for name, fn, dtype in variants:
-        a = jnp.asarray(d1, dtype)
-        b = jnp.asarray(d2, dtype)
-        try:
-            best, second, idx = fn(a, b)
-            _ = float(jnp.sum(best[:1].astype(jnp.float32)))  # sync
-        except Exception as e:  # pragma: no cover - backend-specific
-            print(f"{name}: unavailable ({type(e).__name__})")
-            continue
-        agree = float((np.array(idx[sample]) == ref_idx).mean())
-        runnable.append((name, fn, a, b, agree))
-
-    # Interleave variant reps (measurement convention: relay throughput
-    # drifts over a process lifetime).
-    t_best = {name: float("inf") for name, *_ in runnable}
-    for _rep in range(3):
-        for name, fn, a, b, _agree in runnable:
-            t0 = time.time()
-            outs = [fn(a, b)[0] for _ in range(8)]
-            _ = float(sum(jnp.sum(o[:1].astype(jnp.float32)) for o in outs))
-            t_best[name] = min(t_best[name], (time.time() - t0) / 8)
-    for name, fn, a, b, agree in runnable:
-        t = t_best[name]
-        print(
-            f"{name}: {t*1e3:.2f} ms  "
-            f"({flops/t/1e9:.0f} GFLOP/s)  argmax agreement {agree:.3f}"
-        )
+    for n in sizes:
+        d1 = rng.normal(size=(n, 128)).astype(np.float32)
+        d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
+        d2 = rng.normal(size=(n, 128)).astype(np.float32)
+        d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+        a, b = jnp.asarray(d1), jnp.asarray(d2)
+        variants = {
+            f"{'bf16' if bf16 else 'f32'} chunk={chunk}":
+                (lambda bf16=bf16, chunk=chunk: match_descriptors_top2(
+                    a, b, chunk=chunk, bf16=bf16))
+            for bf16 in (True, False) for chunk in (1024, 2048, 4096)
+        }
+        for f in variants.values():
+            jax.block_until_ready(f())
+        times = {k: [] for k in variants}
+        for _ in range(10):
+            for k, f in variants.items():
+                t0 = time.perf_counter()
+                jax.block_until_ready(f())
+                times[k].append((time.perf_counter() - t0) * 1e3)
+        flops = 2.0 * n * n * 128
+        for k, ts in times.items():
+            med = float(np.median(ts))
+            print(f"{n}x{n}x128 {k}: median {med:.4f} ms, min "
+                  f"{min(ts):.4f} ms ({flops / med / 1e9:.1f} TFLOP/s) "
+                  f"[{jax.devices()[0].device_kind}]", flush=True)
 
 
 if __name__ == "__main__":

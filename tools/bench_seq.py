@@ -1,11 +1,12 @@
-"""Sequence-mode throughput: ms per REGISTERED FRAME on the dino ring.
+"""Sequence-mode throughput: ms per REGISTERED FRAME on a synthetic orbit.
 
 The pair benchmark (bench.py) extracts BOTH images per pair; a
 production sequence extracts each frame ONCE and reuses features for
 the pair chain (reference has no sequence mode at all — src/main.cpp
 is strictly two images).  This measures the streaming cost of one new
 frame: extract(frame) + match(prev, frame) + two-view geometry, chained
-N frames deep with one sync, amortized per the project convention.
+N frames deep with one block_until_ready at the end.  The frames are the
+seeded box scene of sfm_jax.io.synthetic at 720x576.
 
 Usage: python tools/bench_seq.py [n_frames]
 """
@@ -26,26 +27,20 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from sfm_jax import device
 
-    from sfm_tpu.config import SiftConfig, PipelineConfig, RansacConfig
-    from sfm_tpu.io.image_io import load_gray
-    from sfm_tpu.models import two_view
-    from sfm_tpu.sift import frontend
+    device.enable_compile_cache()
+    from sfm_jax.config import SiftConfig, PipelineConfig, RansacConfig
+    from sfm_jax.io import synthetic as syn
+    from sfm_jax.models import two_view
+    from sfm_jax.sift import frontend
 
     n_frames = int(sys.argv[1]) if len(sys.argv) > 1 else 12
-    frames = [
-        jnp.asarray(load_gray(f"/root/reference/data/dino/viff.{i:03d}.ppm"))
-        for i in range(n_frames)
-    ]
-    h, w = frames[0].shape
-    K = jnp.asarray(
-        np.array([[2360.0, 0, w / 2], [0, 2360.0, h / 2], [0, 0, 1]], np.float32)
-    )
+    scene = syn.make_scene(0)
+    K_np = syn.intrinsics()
+    frames = [jnp.asarray(syn.render(scene, K_np, R, t))
+              for R, t in syn.orbit_poses(n_frames)]
+    K = jnp.asarray(K_np)
     cfg = PipelineConfig(
         sift=SiftConfig(max_pts_per_octave=1024),
         ransac=RansacConfig(n_hyps=1024, threshold=3e-6, chunk=256),
@@ -64,19 +59,13 @@ def main():
     t0 = time.time()
     feat0 = frontend.extract_sift(frames[0], cfg.sift)
     feat, res = step(feat0, frames[1], keys[0])
-    _ = float(res.reproj_err)
-    px = math.sqrt(float(res.reproj_err) / 2) * 2360.0
+    px = math.sqrt(float(res.reproj_err) / 2) * syn.FOCAL
     print(
         f"compile+first step {time.time()-t0:.1f}s  "
         f"matches={int(res.num_matches)} inliers={int(res.num_inliers)} "
         f"reproj={px:.3f}px",
         flush=True,
     )
-
-    from sfm_tpu.utils.timing import measure_rtt
-
-    rtt = measure_rtt()
-    print(f"rtt {rtt:.1f} ms", flush=True)
 
     best = float("inf")
     for rep in range(3):
@@ -86,8 +75,8 @@ def main():
         for i in range(1, n_frames):
             feat, res = step(feat, frames[i], keys[(rep * n_frames + i) % 64])
             errs.append(res.reproj_err)
-        _ = float(sum(errs))
-        ms = max(0.0, (time.time() - t0) * 1000.0 - rtt) / (n_frames - 1)
+        jax.block_until_ready(errs)
+        ms = (time.time() - t0) * 1000.0 / (n_frames - 1)
         best = min(best, ms)
         print(f"rep {rep}: {ms:.2f} ms/frame", flush=True)
     print(f"sequence streaming: {best:.2f} ms/frame "

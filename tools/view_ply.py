@@ -74,7 +74,7 @@ def load_ply(path):
 
 
 _HTML = """<!DOCTYPE html>
-<html><head><meta charset="utf-8"><title>sfm_tpu viewer</title><style>
+<html><head><meta charset="utf-8"><title>sfm_jax viewer</title><style>
 html,body{margin:0;height:100%;background:#111;overflow:hidden}
 canvas{display:block}
 #hud{position:fixed;left:10px;top:8px;color:#9a9;font:12px monospace}
